@@ -36,11 +36,11 @@ def main():
 
     import os
 
-    from lap_time_optimization_tpu.models import load_vehicle
-    from lap_time_optimization_tpu.models.bicycle import BicycleModel
-    from lap_time_optimization_tpu.mpc import runner, solver as S
-    from lap_time_optimization_tpu.mpc import track as mpc_track
-    from lap_time_optimization_tpu.mpc.solver import N_CON, NU, NZ, OCPParams, SolverConfig
+    from lap_time_optimization.models import load_vehicle
+    from lap_time_optimization.models.bicycle import BicycleModel
+    from lap_time_optimization.mpc import runner, solver as S
+    from lap_time_optimization.mpc import track as mpc_track
+    from lap_time_optimization.mpc.solver import N_CON, NU, NZ, OCPParams, SolverConfig
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     track = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=os.path.join(repo, "data"))

@@ -2,10 +2,10 @@
 
 Produces benchmarks/results_<platform>.json with every headline measurement:
 single-stream NMPC rates (h10/h20), batched throughput, a full-lap closed
-loop, batched racing-line evaluation throughput (scan vs parallel vs Pallas),
+loop, batched racing-line evaluation throughput (scan vs parallel),
 and racing-line optimizer timings.
 
-Run: python benchmarks/run_all.py            (TPU if available)
+Run: python benchmarks/run_all.py            (the GPU if JAX finds one)
      JAX_PLATFORMS=cpu python benchmarks/run_all.py
 """
 
@@ -17,6 +17,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 import numpy as np
 
@@ -38,20 +40,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from lap_time_optimization_tpu.models import load_vehicle
-    from lap_time_optimization_tpu.models.bicycle import BicycleModel
-    from lap_time_optimization_tpu.mpc import runner
-    from lap_time_optimization_tpu.mpc import track as mpc_track
-    from lap_time_optimization_tpu.mpc.solver import OCPParams, SolverConfig
-    from lap_time_optimization_tpu.ops import pallas_velocity, spline, velocity
-    from lap_time_optimization_tpu.track import Track
+    from lap_time_optimization.models import load_vehicle
+    from lap_time_optimization.models.bicycle import BicycleModel
+    from lap_time_optimization.mpc import runner
+    from lap_time_optimization.mpc import track as mpc_track
+    from lap_time_optimization.mpc.solver import OCPParams, SolverConfig
+    from lap_time_optimization.ops import spline, velocity
+    from lap_time_optimization.track import Track
 
     platform = jax.devices()[0].platform
     out = {"platform": platform, "device": str(jax.devices()[0])}
     print(f"[bench] platform {platform}", flush=True)
 
     # ---------------- NMPC ----------------
-    track = mpc_track.load("MX-5", "buckmore", "curvature", base_dir="/root/reference/data")
+    track = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=DATA)
     model = BicycleModel(vehicle=load_vehicle("MX5"), track=track)
     x0 = jnp.asarray(runner.X0_REFERENCE, jnp.float32)
     p = OCPParams.reference(jnp.float32)
@@ -83,8 +85,8 @@ def main():
     print(f"[bench] 90 s sim: progress {s_final:.1f} m in {wall:.1f} s wall", flush=True)
 
     # ---------------- batched velocity profiles ----------------
-    rtrack = Track.load("/root/reference/data/tracks/buckmore.json", track_width=0.99)
-    veh = load_vehicle("/root/reference/data/vehicles/tbr18.json")
+    rtrack = Track.load(os.path.join(DATA, "tracks", "buckmore.json"), track_width=0.99)
+    veh = load_vehicle(os.path.join(DATA, "vehicles", "tbr18.json"))
     sp = rtrack.mid_spline()
     s = jnp.asarray(np.linspace(0, float(sp.length), rtrack.ns)[:-1], jnp.float32)
     k = spline.curvature(sp, s, signed=False).astype(jnp.float32)
@@ -94,16 +96,13 @@ def main():
 
     scan_fn = jax.jit(jax.vmap(lambda kk: velocity.solve_profile(veh, s, kk, smax, closed=True)))
     par_fn = jax.jit(jax.vmap(lambda kk: velocity.solve_profile_parallel(veh, s, kk, smax, closed=True)))
-    pal_fn = jax.jit(lambda kk: pallas_velocity.solve_profile_batch(veh, s, kk, smax, closed=True))
-    for name, fn in [("scan", scan_fn), ("assoc_parallel", par_fn)] + (
-        [("pallas", pal_fn)] if platform != "cpu" else []
-    ):
+    for name, fn in [("scan", scan_fn), ("assoc_parallel", par_fn)]:
         dt = bench(fn, kb, n=10)
         out[f"velocity_batch1024_{name}_ms"] = round(dt * 1000, 2)
         print(f"[bench] velocity B=1024 {name}: {dt*1000:.2f} ms", flush=True)
 
     # ---------------- racing-line optimizer ----------------
-    from lap_time_optimization_tpu.optim import racing_line
+    from lap_time_optimization.optim import racing_line
 
     dt = bench(lambda: racing_line.minimise_curvature(rtrack, max_iter=600).x, n=3)
     out["curvature_opt_s"] = round(dt, 2)

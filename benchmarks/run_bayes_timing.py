@@ -1,11 +1,11 @@
-"""On-chip Bayesian-search wall-time benchmark (VERDICT round-2 item 2).
+"""Bayesian-search wall-time benchmark (VERDICT round-2 item 2).
 
 Measures `global_search.bayesian` end-to-end on the production platform in
 f32, cold (including jit compiles) and warm (steady state, compile-cached),
 for both vehicles at seed 0 — the same configuration as the README parity
 matrix columns (reference README.md:122 publishes 22.4 s for tbr18 bayes).
 
-Writes benchmarks/bayes_timing_tpu.json.  Run on the chip:
+Writes benchmarks/bayes_timing.json.  Run on the GPU:
 
     python benchmarks/run_bayes_timing.py --solver assoc
 """
@@ -24,16 +24,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver", type=str, default="assoc",
-                    choices=["scan", "assoc", "pallas"])
+                    choices=["scan", "assoc"])
     ap.add_argument("--out", type=str,
-                    default=os.path.join(os.path.dirname(__file__), "bayes_timing_tpu.json"))
+                    default=os.path.join(os.path.dirname(__file__), "bayes_timing.json"))
     args = ap.parse_args()
 
     import jax
 
-    from lap_time_optimization_tpu.models import load_vehicle
-    from lap_time_optimization_tpu.optim import global_search
-    from lap_time_optimization_tpu.track import Track
+    from lap_time_optimization.models import load_vehicle
+    from lap_time_optimization.optim import global_search
+    from lap_time_optimization.track import Track
 
     platform = jax.devices()[0].platform
     results = {"meta": {"platform": platform, "solver": args.solver,

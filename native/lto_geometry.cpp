@@ -1,6 +1,6 @@
 // Native geometry kernels for the host-side setup path.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); these C++ kernels serve the
+// The accelerator owns the compute path (JAX/XLA/Pallas); these C++ kernels serve the
 // host-side preprocessing that sits outside the jitted graphs:
 //   * nearest-boundary distance tables (reference src/mpc/track.py:113-169
 //     reduces to a nearest-sample search; O(n*m) pairwise scan, OpenMP),

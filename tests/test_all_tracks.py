@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.ops import spline, velocity
-from lap_time_optimization_tpu.track import Track
+from lap_time_optimization.ops import spline, velocity
+from lap_time_optimization.track import Track
 
 REF_TRACKS = os.environ.get("LTO_REF_DATA", "/root/reference/data") + "/tracks"
 
@@ -40,7 +40,7 @@ class TestEveryTrack:
 
     @pytest.mark.slow
     def test_curvature_optimization_runs(self, name, track, tbr18):
-        from lap_time_optimization_tpu.optim import racing_line
+        from lap_time_optimization.optim import racing_line
 
         res = racing_line.minimise_curvature(track, max_iter=150)
         lap, length, v, _ = racing_line.evaluate_jit(track, tbr18, res.x)
@@ -54,7 +54,7 @@ class TestEveryTrack:
         assert float(lap) < t_mid
 
     def test_corners_detected(self, name, track):
-        from lap_time_optimization_tpu.optim import racing_line
+        from lap_time_optimization.optim import racing_line
 
         corners, mask = racing_line.detect_track_corners(track)
         assert corners.shape[0] >= 2

@@ -41,7 +41,7 @@ def tbr18_path():
 
 class TestRaceCLI:
     def _run(self, tiny_track_json, tbr18_path, tmp_path, *flags):
-        from lap_time_optimization_tpu.cli import race
+        from lap_time_optimization.cli import race
 
         return race.main(
             [tiny_track_json, tbr18_path, "0.8", *flags, "--output-dir", str(tmp_path)]
@@ -56,7 +56,7 @@ class TestRaceCLI:
         for png in ("path", "corners", "trajectory"):
             assert os.path.isfile(os.path.join(d, f"{png}.png")), png
         # artifact schema round-trips through the NMPC-stage loader
-        from lap_time_optimization_tpu.utils import io
+        from lap_time_optimization.utils import io
 
         x, y = io.load_artifact(os.path.join(d, "path.json"))
         assert len(x) == len(y) > 50
@@ -91,13 +91,13 @@ class TestRaceCLI:
         assert dumped["compromise"]["eps_min"] == 0.19
 
     def test_rejects_unknown_track(self, tbr18_path):
-        from lap_time_optimization_tpu.cli import race
+        from lap_time_optimization.cli import race
 
         with pytest.raises(FileNotFoundError):
             race.main(["nosuch.json", tbr18_path, "0.8", "--curvature"])
 
     def test_requires_method(self, tiny_track_json, tbr18_path):
-        from lap_time_optimization_tpu.cli import race
+        from lap_time_optimization.cli import race
 
         with pytest.raises(SystemExit):
             race.main([tiny_track_json, tbr18_path, "0.8"])
@@ -115,14 +115,14 @@ def ref_artifacts():
 
 class TestMPCCLI:
     def test_short_sim(self, tmp_path, ref_artifacts):
-        from lap_time_optimization_tpu.cli import mpc as mpc_cli
+        from lap_time_optimization.cli import mpc as mpc_cli
 
         out_json = str(tmp_path / "sim.json")
         res = mpc_cli.main(["--curvature", "--steps", "5", "--output", out_json])
         data = json.load(open(out_json))
         assert set(data.keys()) == {"x", "y", "u", "Fy", "alpha"}
         assert np.asarray(data["x"]).shape == (6, 8, 1)
-        s = np.asarray(res.xs)[:, 0]
+        s = np.asarray(res.result.xs)[:, 0]
         assert s[-1] > s[0]
 
 
@@ -130,7 +130,7 @@ class TestMPCCLI:
         """--vref-preview flows through the config-merge layer (the closed
         loop itself is covered by tests/test_mpc.py::TestBrakePreview and the
         slow full-lap gates)."""
-        from lap_time_optimization_tpu.cli import mpc as mpc_cli
+        from lap_time_optimization.cli import mpc as mpc_cli
 
         args = mpc_cli.build_parser().parse_args(
             ["--curvature", "--vref-preview", "1.0"]
@@ -144,8 +144,8 @@ class TestMPCCLI:
 
 class TestShowResultsCLI:
     def test_plots_internals(self, tmp_path, ref_artifacts):
-        from lap_time_optimization_tpu.cli import mpc as mpc_cli
-        from lap_time_optimization_tpu.cli import show_results
+        from lap_time_optimization.cli import mpc as mpc_cli
+        from lap_time_optimization.cli import show_results
 
         sim_json = str(tmp_path / "sim.json")
         mpc_cli.main(["--curvature", "--steps", "3", "--output", sim_json])

@@ -7,7 +7,7 @@ processes, each owning 4 virtual CPU devices, joined through
 parallel subsystems then cross the process boundary (round-3 verdict asked
 for the dp legs, not just sp): the sp-sharded velocity solver's ring
 ppermute + all_gather collectives, the NMPC fleet's shard_map, and the
-dp-sharded nonlinear search's reductions — exactly what 2 TPU hosts on DCN
+dp-sharded nonlinear search's reductions — exactly what two hosts on a network
 run (the transport differs, the program and runtime path do not).
 
 Slow tier: each worker pays full CPU jits of all three stacks (~2-4 min).

@@ -13,14 +13,14 @@ import json
 import jax.numpy as jnp
 import numpy as np
 
-from lap_time_optimization_tpu.mpc import track as mpc_track
-from lap_time_optimization_tpu.models.bicycle import (
+from lap_time_optimization.mpc import track as mpc_track
+from lap_time_optimization.models.bicycle import (
     IDX_R,
     NX,
     BicycleModel,
 )
-from lap_time_optimization_tpu.models.vehicle import GRAV
-from lap_time_optimization_tpu.utils.config import Config, MPCConfig
+from lap_time_optimization.models.vehicle import GRAV
+from lap_time_optimization.utils.config import Config, MPCConfig
 
 import os
 import pytest
@@ -126,12 +126,12 @@ class TestTractionEllipseInSolver:
         the closed loop keeps the applied states inside the (normalized)
         ellipse (VERDICT r1: implement the intended-but-disabled feature
         properly behind a flag)."""
-        from lap_time_optimization_tpu.mpc import runner, solver as S
+        from lap_time_optimization.mpc import runner, solver as S
 
         model = BicycleModel(vehicle=mx5, track=track, enable_traction_ellipse=True)
         assert S.n_con(model) == 16
         p = S.OCPParams.reference(jnp.float64, lateral_margin=0.05)
-        cfg = S.SolverConfig(horizon=10)  # pallas/interpret auto-falls back to xla
+        cfg = S.SolverConfig(horizon=10)  # "auto" is the XLA path on the CPU
         x0 = jnp.asarray(runner.X0_REFERENCE, jnp.float64)
         sim = runner.closed_loop(model, p, cfg, x0, 15)
         xs = np.asarray(sim.xs)
@@ -150,7 +150,7 @@ class TestConfig:
         # epsilon bounds, src/trajectory.py:99
         assert (cfg.compromise.eps_min, cfg.compromise.eps_max) == (0.0, 0.2)
         # BO stop rule, tbn.py:195 (min_samples raised 20->25 alongside the
-        # TPU-scaled init batch; window/tol keep the reference values)
+        # batch-scaled init batch; window/tol keep the reference values)
         assert (cfg.bayes.sigma_window, cfg.bayes.sigma_tol) == (10, 1e-3)
         assert cfg.bayes.min_samples >= 20
         # MPC weights/horizon/x0, src/mpc/controller.py:9,29; src/mpc.py:107-126
@@ -174,7 +174,7 @@ class TestConfig:
 
 class TestCLISanitizerFlags:
     def test_parser_accepts_debug_and_profile_flags(self):
-        from lap_time_optimization_tpu.cli.race import build_parser
+        from lap_time_optimization.cli.race import build_parser
 
         args = build_parser().parse_args(
             ["t.json", "v.json", "0.8", "--curvature", "--debug-nans", "--profile-dir", "/tmp/x"]

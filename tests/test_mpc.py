@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.models.bicycle import NU, NX, BicycleModel
-from lap_time_optimization_tpu.mpc import runner
-from lap_time_optimization_tpu.mpc import solver as solver_mod
-from lap_time_optimization_tpu.mpc import track as mpc_track
-from lap_time_optimization_tpu.mpc.solver import N_CON, OCPParams, SolverConfig
+from lap_time_optimization.models.bicycle import NU, NX, BicycleModel
+from lap_time_optimization.mpc import runner
+from lap_time_optimization.mpc import solver as solver_mod
+from lap_time_optimization.mpc import track as mpc_track
+from lap_time_optimization.mpc.solver import N_CON, OCPParams, SolverConfig
 
 REF_DATA = os.environ.get("LTO_REF_DATA", "/root/reference/data")
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -266,7 +266,7 @@ class TestChunkedClosedLoop:
         baseline = runner.closed_loop_chunked(model, p, cfg, x0, 6, chunk=2)
         # first run writes checkpoints after chunks 1 and 2 (done=2, 4)
         first = runner.closed_loop_chunked(model, p, cfg, x0, 6, chunk=2, checkpoint_path=cp)
-        from lap_time_optimization_tpu.utils import checkpoint
+        from lap_time_optimization.utils import checkpoint
 
         assert checkpoint.exists(cp)
         assert int(checkpoint.load(cp)["done"]) == 4
@@ -296,41 +296,26 @@ class TestChunkedClosedLoop:
         for a, b in zip(baseline2, resumed2):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    def test_solve_batch_non_gauss_newton_falls_back(self, model):
-        """solve_batch with a Pallas-family backend + non-GN Hessians must
-        delegate to vmap(solve) on the XLA path instead of raising
-        (ADVICE r3)."""
-        from lap_time_optimization_tpu.mpc.solver import n_con, solve_batch
+    def test_solve_batch_non_gauss_newton_falls_back(self, model, monkeypatch):
+        """Non-GN Hessians: "auto" resolves to the XLA path (vmap(solve)) on
+        every platform, GPU included, while a kernel backend named explicitly
+        raises in solve_batch as it does in solve (ADVICE r3)."""
+        from lap_time_optimization.mpc.solver import n_con, solve, solve_batch
 
         p = OCPParams.reference(jnp.float64)
-        cfg = SolverConfig(horizon=4, hessian_mode="exact", backend="interpret")
         x0 = jnp.asarray(runner.X0_REFERENCE)
         z0_b = jnp.tile(jnp.concatenate([x0, jnp.zeros(2)]), (2, 1))
         us0 = jnp.zeros((2, 4, NU))
         lam0 = jnp.zeros((2, 5, n_con(model)))
+        cfg = SolverConfig(horizon=4, hessian_mode="exact")
         res = solve_batch(model, p, cfg, z0_b, us0, lam0)
         assert np.all(np.isfinite(np.asarray(res.cost)))
-
-    def test_batch_window_derivation(self, model):
-        """`ensure_batch_window` sizes the batch kernel's table window from
-        the concrete track + horizon (ADVICE r3: WINDOW=64 hard-coded ~1 m
-        spacing); explicit-but-insufficient windows are rejected."""
-        from lap_time_optimization_tpu.mpc import solver as solver_mod
-
-        cfg = SolverConfig(horizon=10, backend="pallas")
-        out = solver_mod.ensure_batch_window(model, cfg)
-        need = solver_mod.required_batch_window(model, cfg)
-        assert out.window >= max(need, 64) and out.window % 8 == 0
-        # a long/fast horizon on the same table spacing needs a larger window
-        cfg_long = SolverConfig(horizon=40, backend="pallas")
-        assert solver_mod.required_batch_window(model, cfg_long) > need
-        with pytest.raises(ValueError):
-            solver_mod.ensure_batch_window(
-                model, SolverConfig(horizon=40, backend="pallas", window=16)
-            )
-        # the XLA backend has no window to validate
-        cfg_xla = SolverConfig(horizon=10, backend="xla", window=16)
-        assert solver_mod.ensure_batch_window(model, cfg_xla) is cfg_xla
+        cfg_k = SolverConfig(horizon=4, hessian_mode="exact", backend="interpret")
+        for fn, args in ((solve_batch, (z0_b, us0, lam0)), (solve, (z0_b[0], us0[0], lam0[0]))):
+            with pytest.raises(ValueError, match="gauss_newton"):
+                fn(model, p, cfg_k, *args)
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert solver_mod._resolved_backend(cfg) == "xla"
 
 
 class TestBrakePreview:
@@ -640,6 +625,10 @@ class TestBatchedClosedLoop:
         )
         np.testing.assert_allclose(
             np.asarray(batch.xs[1]), np.asarray(batch.xs[0]), rtol=1e-12
+        )
+        # a batched result's applied violation is the max over its loops
+        assert runner.applied_violation(model, p, batch) == pytest.approx(
+            runner.applied_violation(model, p, single), abs=1e-12
         )
 
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.utils import corners as corner_utils
-from lap_time_optimization_tpu.utils import native
+from lap_time_optimization.utils import corners as corner_utils
+from lap_time_optimization.utils import native
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +43,7 @@ class TestFilterCorners:
             np.testing.assert_array_equal(got, ref)
 
     def test_full_pipeline_identical_with_and_without_native(self, built, buckmore, monkeypatch):
-        from lap_time_optimization_tpu.optim import racing_line
+        from lap_time_optimization.optim import racing_line
 
         corners_native, mask_native = racing_line.detect_track_corners(buckmore)
         monkeypatch.setattr(native, "_lib", None)

@@ -3,7 +3,9 @@
 The kernel runs in interpreter mode on CPU here, compared against the XLA
 lax.scan path (`mpc/solver._backward_pass` + `_forward_pass`) on identical
 inputs — same Riccati recursion, same line-search ladder, same AL cost.
-Deviations are float rounding-order only.
+Deviations are float rounding-order only.  The wrapper's padding, the
+rung selection, the Triton lowering and the gradient refusal are checked
+here too; compiled parity on the GPU is `chip_smoke.py`'s phase 3.
 """
 
 import os
@@ -13,17 +15,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.mpc import runner, solver as S
-from lap_time_optimization_tpu.mpc import track as mpc_track
-from lap_time_optimization_tpu.mpc.solver import N_CON, NU, OCPParams, SolverConfig
-from lap_time_optimization_tpu.ops import pallas_ilqr as PK
+from lap_time_optimization.mpc import runner, solver as S
+from lap_time_optimization.mpc import track as mpc_track
+from lap_time_optimization.mpc.solver import N_CON, NU, OCPParams, SolverConfig
+from lap_time_optimization.ops import pallas_ilqr as PK
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 
 @pytest.fixture(scope="module")
 def stack(mx5):
-    from lap_time_optimization_tpu.models.bicycle import BicycleModel
+    from lap_time_optimization.models.bicycle import BicycleModel
 
     d = os.path.join(REPO_DATA, "plots", "MX-5", "buckmore", "curvature")
     if not os.path.isdir(d):
@@ -34,7 +36,7 @@ def stack(mx5):
 
 def _cast(model, dtype):
     """Cast every float leaf of the model pytree (tables run f64 under the
-    x64 test env; the f32 case exercises production TPU precision)."""
+    x64 test env; the f32 case exercises the production GPU precision)."""
     return jax.tree.map(
         lambda a: a.astype(dtype) if jnp.issubdtype(a.dtype, jnp.floating) else a,
         model,
@@ -48,6 +50,14 @@ def _inputs(model, dtype, cfg, p, throttle=0.05):
     lams = jnp.zeros((cfg.horizon + 1, S.n_con(model)), dtype)
     zs = S._rollout(model, cfg, z0, us)
     return z0, zs, us, lams
+
+
+def _kernel_iteration(model, p, cfg, zs, us, lams, rho, reg):
+    """One interpreted kernel iteration for a single instance."""
+    cost, zs_k, us_k, div = S._iterate_kernel(
+        model, p, cfg, zs[None], us[None], lams[None], rho, reg[None], interpret=True
+    )
+    return cost[0], zs_k[0], us_k[0], div[0]
 
 
 class TestKernelParity:
@@ -66,8 +76,8 @@ class TestKernelParity:
             *S._backward_pass(model, p, cfg, zs, us, lams, rho, reg)[:2],
             lams, rho,
         )
-        new_cost, zs_k, us_k, diverged = S._iterate_pallas(
-            model, p, cfg, zs, us, lams, rho, reg, interpret=True
+        new_cost, zs_k, us_k, diverged = _kernel_iteration(
+            model, p, cfg, zs, us, lams, rho, reg
         )
         tol = 1e-5 if dtype == jnp.float32 else 1e-11
         assert not bool(diverged)
@@ -110,14 +120,39 @@ class TestKernelParity:
             *S._backward_pass(model, p, cfg, zs, us, lams, rho, reg)[:2],
             lams, rho,
         )
-        new_cost, zs_k, us_k, diverged = S._iterate_pallas(
-            model, p, cfg, zs, us, lams, rho, reg, interpret=True
+        new_cost, zs_k, us_k, diverged = _kernel_iteration(
+            model, p, cfg, zs, us, lams, rho, reg
         )
         tol = 1e-5 if dtype == jnp.float32 else 1e-11
         assert not bool(diverged)
         np.testing.assert_allclose(np.asarray(zs_k), np.asarray(zs_x), rtol=tol, atol=tol)
         np.testing.assert_allclose(np.asarray(us_k), np.asarray(us_x), rtol=tol, atol=tol)
         np.testing.assert_allclose(float(new_cost), float(cost_x), rtol=10 * tol)
+
+    def test_torque_vectoring_matches_xla(self, stack):
+        """The kernel's RHS carries the torque-vectoring yaw moment when the
+        model enables it (models/bicycle.rhs)."""
+        import dataclasses
+
+        dtype = jnp.float64
+        model = dataclasses.replace(_cast(stack, dtype), enable_torque_vectoring=True)
+        cfg = SolverConfig(horizon=10)
+        p = OCPParams.reference(dtype, lateral_margin=0.05)
+        _, zs, us, lams = _inputs(model, dtype, cfg, p, throttle=0.3)
+        zs = zs.at[:, 6].set(0.1)  # a steering angle, so the moment is nonzero
+        rho = jnp.asarray(cfg.rho_init, dtype)
+        reg = jnp.asarray(1e-6, dtype)
+        cost_x, zs_x, us_x = S._forward_pass(
+            model, p, cfg, zs, us,
+            *S._backward_pass(model, p, cfg, zs, us, lams, rho, reg)[:2],
+            lams, rho,
+        )
+        new_cost, zs_k, us_k, diverged = _kernel_iteration(
+            model, p, cfg, zs, us, lams, rho, reg
+        )
+        assert not bool(diverged)
+        np.testing.assert_allclose(np.asarray(zs_k), np.asarray(zs_x), rtol=1e-11, atol=1e-11)
+        np.testing.assert_allclose(float(new_cost), float(cost_x), rtol=1e-10)
 
     def test_traction_ellipse_full_solve_matches_xla(self, stack):
         import dataclasses
@@ -134,31 +169,28 @@ class TestKernelParity:
         np.testing.assert_allclose(float(r_p.cost), float(r_x.cost), rtol=1e-4)
 
     def test_table_lookup_matches_uinterp(self, stack):
-        """The kernel's two-hot interpolation must equal MPCTrack._uinterp."""
+        """The kernel's two-point indexed lookup must equal MPCTrack._uinterp,
+        wrap and table edges included."""
         model = stack
         dtype = jnp.float64
         tables = PK.tables_matrix(model, dtype)
         track = model.track
         n = track.s_grid.shape[0]
         s = jnp.asarray(np.linspace(-10.0, 2.0 * float(track.s_max), 97), dtype)
-        ref = track.curvature(s)
-
-        got = PK._lookup(
-            tables[0:1],
-            s[:, None],
-            jnp.asarray(track.s_max, dtype),
-            jnp.asarray((n - 1) / track.s_max, dtype),
-            n,
-        )[:, 0]
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-9, atol=1e-12)
+        scal = PK.scal_vector(model, OCPParams.reference(dtype), SolverConfig(), 1.0, dtype)
+        ctx = PK._Ctx(scal, tables.reshape(-1), n, closed=True, tv=False)
+        for row, ref in enumerate(
+            (track.curvature(s), track.dist_left(s), track.dist_right(s), track.v_ref(s))
+        ):
+            got = ctx.lookup(row, s)
+            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-9, atol=1e-12)
 
 
 class TestBatchedKernel:
-    """Parity gates for the batch-parallel fused kernel
-    (ops/pallas_ilqr_batch): per-instance results must match the vmapped
-    XLA path on identical inputs.  Instances start at DIFFERENT arc
-    lengths so the per-instance table windowing is genuinely exercised
-    (including one instance near the lap seam)."""
+    """Parity gates for the kernel's batch grid (one program per instance):
+    per-instance results must match the vmapped XLA path on identical
+    inputs.  Instances start at DIFFERENT arc lengths, one near the lap
+    seam, so the table lookups wrap."""
 
     def _batch_inputs(self, model, dtype, cfg, B=3):
         s_max = float(model.track.s_max)
@@ -173,39 +205,6 @@ class TestBatchedKernel:
         us_b = jnp.full((B, cfg.horizon, NU), 0.05, dtype)
         lam_b = jnp.zeros((B, cfg.horizon + 1, S.n_con(model)), dtype)
         return z0_b, us_b, lam_b
-
-    def test_window_tables_match_global_lookup(self, stack):
-        """Windowed lookups must equal the global-table lookup for every
-        in-window arc length, including windows wrapping the lap seam."""
-        from lap_time_optimization_tpu.ops import pallas_ilqr_batch as PKB
-
-        model = stack
-        dtype = jnp.float64
-        tables = PK.tables_matrix(model, dtype)
-        track = model.track
-        s_max = float(track.s_max)
-        n = tables.shape[1]
-        ds = s_max / (n - 1)
-        W = PKB.WINDOW
-        s0_b = jnp.asarray([0.0, 1.0, 400.0, s_max - 2.0], dtype)
-        wtab, s0_win = PKB.window_tables(tables, s0_b, jnp.asarray(s_max, dtype), W)
-        assert wtab.shape == (4, W, 4)
-        for b in range(4):
-            # probe the GUARANTEED part of the window: start = floor(s0/ds)-M
-            # can sit up to one sample behind s0 - M*ds, so the safe probe
-            # range from s0 is (-M*ds, (W - M - 2)*ds]
-            offs = np.linspace(-PKB.MARGIN * ds + 1e-6, (W - PKB.MARGIN - 2) * ds, 33)
-            s_probe = (float(s0_b[b]) + offs) % s_max
-            ref = np.asarray(track.curvature(jnp.asarray(s_probe, dtype)))
-            got = PKB._lookup_b(
-                wtab[0:1, :, b:b + 1],
-                jnp.asarray(s_probe, dtype)[:, None, None],
-                s0_win[None, None, b:b + 1],
-                jnp.asarray(s_max, dtype),
-                jnp.asarray((n - 1) / s_max, dtype),
-                W,
-            )[:, 0, 0]
-            np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-9, atol=1e-12)
 
     @pytest.mark.parametrize("dtype_name", ["float32", "float64"])
     def test_solve_batch_matches_vmap_solve(self, stack, dtype_name):
@@ -256,3 +255,88 @@ class TestBatchedKernel:
         np.testing.assert_allclose(
             np.asarray(r_b.xs), np.asarray(r_x.xs), rtol=2e-3, atol=2e-3
         )
+
+
+class TestKernelWrapper:
+    """What surrounds the kernel, checked without running it: the padding
+    to power-of-two blocks, the rung selection, the Triton lowering and the
+    refusal to differentiate."""
+
+    def test_pad_stage_inputs_shapes_and_zero_fill(self, rng):
+        Bn, N = 3, 10
+        r = lambda *shape: jnp.asarray(rng.normal(size=shape))
+        A, B, lz = r(Bn, N, 10, 10), r(Bn, N, 10, NU), r(Bn, N, 10)
+        lzz, luz, Vz, Vzz = r(Bn, N, 10, 10), r(Bn, N, NU, 10), r(Bn, 10), r(Bn, 10, 10)
+        out = PK.pad_stage_inputs(A, B, lz, lzz, luz, Vz, Vzz)
+        assert out["A"].shape == out["lzz"].shape == (Bn, 16, 16, 16)
+        assert out["Bt"].shape == out["luz"].shape == (Bn, 16, NU, 16)
+        assert out["lz"].shape == (Bn, 16, 16)
+        assert out["Vz"].shape == (Bn, 16) and out["Vzz"].shape == (Bn, 16, 16)
+        np.testing.assert_array_equal(out["A"][:, :N, :10, :10], A)
+        np.testing.assert_array_equal(out["Bt"][:, :N, :, :10], jnp.swapaxes(B, 2, 3))
+        np.testing.assert_array_equal(out["Vzz"][:, :10, :10], Vzz)
+        # the padding is exactly zero, so the padded Riccati rows stay zero
+        assert float(jnp.abs(out["A"][:, N:]).max()) == 0.0
+        assert float(jnp.abs(out["A"][:, :, 10:]).max()) == 0.0
+        assert float(jnp.abs(out["lz"][:, :, 10:]).max()) == 0.0
+        assert float(jnp.abs(out["Vz"][:, 10:]).max()) == 0.0
+
+    @pytest.mark.parametrize("L,LP", [(1, 1), (6, 8), (8, 8), (9, 16)])
+    def test_pad_ladder_repeats_last_rung(self, L, LP):
+        alphas = jnp.linspace(1.0, 0.1, L)
+        padded = PK.pad_ladder(alphas)
+        assert padded.shape == (LP,)
+        np.testing.assert_array_equal(padded[:L], alphas)
+        np.testing.assert_array_equal(padded[L:], jnp.full((LP - L,), alphas[-1]))
+
+    def test_select_best_unpads_and_masks(self):
+        Bn, N, LP, L = 3, 2, 8, 6
+        zall = jnp.arange(Bn * (N + 1) * 10 * LP, dtype=jnp.float64).reshape(Bn, N + 1, 10, LP)
+        uall = -jnp.arange(Bn * N * NU * LP, dtype=jnp.float64).reshape(Bn, N, NU, LP)
+        costs = jnp.array([
+            [5.0, 4.0, 3.0, 9.0, 9.0, 9.0, 0.0, 0.0],      # padded rungs cheapest
+            [jnp.nan, 2.0, jnp.inf, 2.0, 7.0, 8.0, 1.0, 1.0],  # tie -> lowest index
+            [jnp.nan] * LP,                                 # nothing finite
+        ])
+        zs, us, cost = PK.select_best(zall, uall, costs, L)
+        assert zs.shape == (Bn, N + 1, 10) and us.shape == (Bn, N, NU)
+        np.testing.assert_array_equal(cost[:2], [3.0, 2.0])
+        assert not np.isfinite(float(cost[2]))  # rejected by the solver's cost test
+        np.testing.assert_array_equal(zs[0], zall[0, :, :, 2])
+        np.testing.assert_array_equal(us[1], uall[1, :, :, 1])
+
+    @pytest.mark.parametrize("traction_ellipse", [False, True])
+    def test_kernel_lowers_for_cuda(self, stack, traction_ellipse):
+        """The Triton route's lowering (Pallas -> Triton IR) runs without a
+        GPU: every primitive of the kernel must have a rule and every block
+        a power-of-two size.  Compiling to PTX needs the card."""
+        import dataclasses
+
+        dtype = jnp.float32
+        model = dataclasses.replace(_cast(stack, dtype), enable_traction_ellipse=traction_ellipse)
+        cfg = SolverConfig(horizon=10)
+        p = OCPParams.reference(dtype, lateral_margin=0.05)
+        _, zs, us, lams = _inputs(model, dtype, cfg, p)
+        rho = jnp.asarray(cfg.rho_init, dtype)
+        Bn = 4
+        tile = lambda a: jnp.tile(a[None], (Bn,) + (1,) * a.ndim)
+        fn = jax.jit(lambda zs, us, lams, reg: S._iterate_kernel(
+            model, p, cfg, zs, us, lams, rho, reg, interpret=False))
+        lowered = fn.trace(tile(zs), tile(us), tile(lams), jnp.full((Bn,), 1e-6, dtype)).lower(
+            lowering_platforms=("cuda",)
+        )
+        text = lowered.as_text()
+        assert "__gpu$xla.gpu.triton" in text
+        assert "grid_x = 4" in text and "num_warps = 1" in text
+
+    def test_gradient_through_kernel_is_refused(self, stack):
+        """The kernel is forward-only: differentiating a kernel-backed solve
+        must fail with a message that names the XLA backend."""
+        dtype = jnp.float32
+        model = _cast(stack, dtype)
+        cfg = SolverConfig(horizon=4, al_iters=1, ilqr_iters=1, backend="interpret")
+        p = OCPParams.reference(dtype, lateral_margin=0.05)
+        z0, _, us, lams = _inputs(model, dtype, cfg, p)
+        loss = lambda z: S.solve(model, p, cfg, z, us, lams).cost
+        with pytest.raises(NotImplementedError, match="backend='xla'"):
+            jax.grad(loss)(z0)

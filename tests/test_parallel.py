@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.parallel import mesh as pmesh
+from lap_time_optimization.parallel import mesh as pmesh
 
 
 @pytest.fixture(scope="module")
@@ -47,19 +47,6 @@ class TestMesh:
         # elitism: slot 0 carries the incumbent
         np.testing.assert_allclose(np.asarray(new_batch[0]), np.asarray(a_best))
 
-    def test_pallas_solver_rejected_under_multi_device_mesh(
-        self, eight_devices, buckmore, tbr18, rng
-    ):
-        """solver='pallas' is single-chip only: under a multi-device mesh the
-        kernel would gather the dp-sharded batch onto one device and silently
-        defeat the mesh, so batch_lap_times must fail loudly instead."""
-        alphas = jnp.asarray(rng.uniform(0.2, 0.8, size=(16, buckmore.size)))
-        mesh = pmesh.make_mesh(8, sp=2)
-        with jax.set_mesh(mesh):
-            a_sharded = pmesh.shard_batch(mesh, alphas)
-            with pytest.raises(ValueError, match="single-chip"):
-                pmesh.batch_lap_times(buckmore, tbr18, a_sharded, "pallas")
-
     @pytest.mark.slow
     def test_evolutionary_search_improves(self, eight_devices, buckmore, tbr18):
         _, hist = pmesh.evolutionary_search(
@@ -84,7 +71,7 @@ class TestGraftEntry:
 
 class TestScalingHarness:
     def test_weak_scaling_runs(self, eight_devices, buckmore, tbr18):
-        from lap_time_optimization_tpu.parallel import scaling
+        from lap_time_optimization.parallel import scaling
 
         results = scaling.measure(
             buckmore, tbr18, device_counts=(1, 2), batch_per_device=16, rounds=2
@@ -96,7 +83,7 @@ class TestScalingHarness:
         assert "efficiency" in out
 
     def test_distributed_initialize_noop_single_process(self):
-        from lap_time_optimization_tpu.parallel import distributed
+        from lap_time_optimization.parallel import distributed
 
         distributed.initialize()  # must no-op without a cluster
         mesh = distributed.global_mesh(sp=2)
@@ -115,7 +102,7 @@ class TestSequenceParallelVelocity:
 
     @pytest.fixture(scope="class")
     def samples(self, buckmore):
-        from lap_time_optimization_tpu.ops import spline
+        from lap_time_optimization.ops import spline
 
         sp = buckmore.mid_spline()
         s = jnp.asarray(np.linspace(0.0, float(sp.length), buckmore.ns)[:-1])
@@ -124,8 +111,8 @@ class TestSequenceParallelVelocity:
 
     @pytest.mark.parametrize("veh_name", ["tbr18", "mx5"])
     def test_closed_exact(self, veh_name, sp_mesh, samples, request):
-        from lap_time_optimization_tpu.ops import velocity
-        from lap_time_optimization_tpu.parallel import sp_velocity
+        from lap_time_optimization.ops import velocity
+        from lap_time_optimization.parallel import sp_velocity
 
         veh = request.getfixturevalue(veh_name)
         s, k, smax = samples
@@ -136,8 +123,8 @@ class TestSequenceParallelVelocity:
         np.testing.assert_allclose(got, ref, rtol=1e-9)
 
     def test_open_exact(self, sp_mesh, samples, tbr18):
-        from lap_time_optimization_tpu.ops import velocity
-        from lap_time_optimization_tpu.parallel import sp_velocity
+        from lap_time_optimization.ops import velocity
+        from lap_time_optimization.parallel import sp_velocity
 
         s, k, smax = samples
         ref = np.asarray(velocity.solve_profile(tbr18, s[:400], k[:400], None, closed=False))
@@ -159,11 +146,11 @@ class TestClosedLoopFleet:
 
         import jax.numpy as jnp
 
-        from lap_time_optimization_tpu.models import load_vehicle
-        from lap_time_optimization_tpu.models.bicycle import BicycleModel
-        from lap_time_optimization_tpu.mpc import runner
-        from lap_time_optimization_tpu.mpc import track as mpc_track
-        from lap_time_optimization_tpu.mpc.solver import OCPParams, SolverConfig
+        from lap_time_optimization.models import load_vehicle
+        from lap_time_optimization.models.bicycle import BicycleModel
+        from lap_time_optimization.mpc import runner
+        from lap_time_optimization.mpc import track as mpc_track
+        from lap_time_optimization.mpc.solver import OCPParams, SolverConfig
 
         repo_data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
         if not os.path.isdir(os.path.join(repo_data, "plots", "MX-5", "buckmore", "curvature")):
@@ -197,7 +184,7 @@ class TestClosedLoopFleet:
 @pytest.mark.slow
 class TestShardedNonlinear:
     def test_matches_unsharded(self, eight_devices, buckmore, tbr18):
-        from lap_time_optimization_tpu.optim import global_search
+        from lap_time_optimization.optim import global_search
 
         kw = dict(seed=0, n_random=64, n_refine=8, max_iter=30)
         x1, f1 = global_search.nonlinear(buckmore, tbr18, **kw)
@@ -216,7 +203,7 @@ class TestTwoAxisSearch:
     def test_dp_sp_matches_single_device(self, eight_devices, buckmore, tbr18):
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from lap_time_optimization_tpu.parallel import mesh as pmesh
+        from lap_time_optimization.parallel import mesh as pmesh
 
         m42 = pmesh.make_mesh(8, sp=2)  # 4 × 2
         assert m42.shape["dp"] == 4 and m42.shape["sp"] == 2

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.optim import racing_line
+from lap_time_optimization.optim import racing_line
 
 REF_CURVATURE_LAP_TBR18 = 39.934  # README.md:121
 REF_COMPROMISE_LAP_TBR18 = 37.810  # README.md:121

@@ -17,11 +17,11 @@ import numpy as np
 import pytest
 import scipy.optimize
 
-from lap_time_optimization_tpu.models.bicycle import NU, BicycleModel
-from lap_time_optimization_tpu.mpc import runner
-from lap_time_optimization_tpu.mpc import solver as S
-from lap_time_optimization_tpu.mpc import track as mpc_track
-from lap_time_optimization_tpu.mpc.solver import N_CON, OCPParams, SolverConfig
+from lap_time_optimization.models.bicycle import NU, BicycleModel
+from lap_time_optimization.mpc import runner
+from lap_time_optimization.mpc import solver as S
+from lap_time_optimization.mpc import track as mpc_track
+from lap_time_optimization.mpc.solver import N_CON, OCPParams, SolverConfig
 
 REF_DATA = os.environ.get("LTO_REF_DATA", "/root/reference/data")
 
@@ -30,7 +30,7 @@ REF_DATA = os.environ.get("LTO_REF_DATA", "/root/reference/data")
 def stack():
     if not os.path.isdir(os.path.join(REF_DATA, "plots", "MX-5", "buckmore", "curvature")):
         pytest.skip("reference artifacts not available")
-    from lap_time_optimization_tpu.models import load_vehicle
+    from lap_time_optimization.models import load_vehicle
 
     track = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=REF_DATA)
     model = BicycleModel(

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline, splev, splprep
 
-from lap_time_optimization_tpu.ops import spline
+from lap_time_optimization.ops import spline
 
 
 def _closed_controls(track):

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.ops import spline, spline_extra
+from lap_time_optimization.ops import spline, spline_extra
 
 REF_DATA = os.environ.get("LTO_REF_DATA", "/root/reference/data")
 
@@ -139,7 +139,7 @@ class TestSimplifyCLI:
     def results(self, tmp_path_factory):
         if not os.path.isdir(REF_DATA):
             pytest.skip("reference data directory not available")
-        from lap_time_optimization_tpu.cli.simplify import main
+        from lap_time_optimization.cli.simplify import main
 
         out = tmp_path_factory.mktemp("simplify")
         return main(

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lap_time_optimization_tpu.track import Track, shrink_boundaries
-from lap_time_optimization_tpu.utils import corners as corner_utils
+from lap_time_optimization.track import Track, shrink_boundaries
+from lap_time_optimization.utils import corners as corner_utils
 
 
 class TestTrackLoad:
@@ -73,7 +73,7 @@ class TestCornerUtils:
         assert pairs[0][0] == 10 and pairs[0][1] == 40
 
     def test_detect_on_buckmore(self, buckmore):
-        from lap_time_optimization_tpu.optim import racing_line
+        from lap_time_optimization.optim import racing_line
 
         corners, mask = racing_line.detect_track_corners(buckmore)
         assert corners.ndim == 2 and corners.shape[1] == 2

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lap_time_optimization_tpu.ops import spline, velocity
+from lap_time_optimization.ops import spline, velocity
 
 
 def oracle_profile(vehicle, s, k, s_max=None):
